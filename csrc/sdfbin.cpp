@@ -1,6 +1,6 @@
-// Native triangle->tile band binning for sdfgenfast_tpu.
+// Native triangle->tile band binning for sdfgenfast.
 //
-// The TPU pipeline's host-side preprocessing bins every triangle into each
+// The pipeline's host-side preprocessing bins every triangle into each
 // grid tile overlapped by its band-expanded bbox (the static-shape
 // replacement for the reference's per-triangle cell scatter,
 // cpu_lib/makelevelset3.cpp:203-220, and the CUDA backend's atomics,

@@ -1,4 +1,4 @@
-// sdfgenfast_tpu native I/O library.
+// sdfgenfast native I/O library.
 //
 // Clean-room, high-throughput implementations of the framework's file formats
 // (the reference implements these in C++ too: common/mesh_io_obj.cpp,

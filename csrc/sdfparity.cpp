@@ -5,7 +5,7 @@
 // along +i using exact double-precision SOS point-in-triangle predicates,
 // prefix the counts along i, and emit the parity bit-packed along i
 // (little bit order), i.e. the exact output of
-// sdfgenfast_tpu.ops.sign_host.pack_parity(parity_field_host(...)).
+// sdfgenfast.ops.sign_host.pack_parity(parity_field_host(...)).
 //
 // Semantics follow the reference's double-precision sign pass
 // (cpu_lib/makelevelset3.cpp:155-187, 222-235, 295-303): grid coordinates in

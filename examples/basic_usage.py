@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Walkthrough examples for sdfgenfast_tpu — the analog of the reference's
+"""Walkthrough examples for sdfgenfast — the analog of the reference's
 ``python/examples/basic_usage.py`` (6 examples, same progression), plus a
 seventh for the capability the reference lacks: differentiable SDFs.
 
@@ -18,7 +18,7 @@ import numpy as np
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
-import sdfgenfast_tpu as sg  # noqa: E402
+import sdfgenfast as sg  # noqa: E402
 
 RESOURCES = os.path.join(REPO, "tests", "resources")
 BOX_STL = os.path.join(RESOURCES, "box345.stl")
@@ -67,7 +67,7 @@ def example_3_programmatic_mesh():
     """Build a mesh in NumPy (no file) and generate from the arrays."""
     banner("Example 3: Programmatic mesh (unit cube from arrays)")
 
-    from sdfgenfast_tpu.mesh import box_mesh
+    from sdfgenfast.mesh import box_mesh
 
     mesh = box_mesh((1.0, 1.0, 1.0), (0.0, 0.0, 0.0))
     sdf, meta = sg.generate_from_mesh(mesh.verts, mesh.tris, nx=24, padding=2)
@@ -93,19 +93,19 @@ def example_4_save_and_load():
 
 
 def example_5_backend_selection():
-    """Backend dispatch: auto / cpu / tpu (the reference's CPU/GPU analog)."""
+    """Backend dispatch: auto / cpu / gpu (the reference's vocabulary)."""
     banner("Example 5: Backend selection")
 
-    print(f"TPU available: {sg.is_tpu_available()}")
+    print(f"GPU available: {sg.is_gpu_available()}")
     sdf_auto, _ = sg.generate_from_file(BOX_STL, nx=32, backend="auto")
     sdf_cpu, _ = sg.generate_from_file(BOX_STL, nx=32, backend="cpu")
     diff = np.abs(sdf_auto - sdf_cpu).max()
     print(f"auto vs cpu max |diff|: {diff:.2e}")
     try:
-        sg.generate_from_file(BOX_STL, nx=32, backend="tpu")
-        print("backend='tpu': OK")
+        sg.generate_from_file(BOX_STL, nx=32, backend="gpu")
+        print("backend='gpu': OK")
     except RuntimeError as e:
-        print(f"backend='tpu' raised (no TPU here): {e}")
+        print(f"backend='gpu' raised (no GPU here): {e}")
 
 
 def example_6_different_resolutions():
@@ -125,14 +125,14 @@ def example_6_different_resolutions():
 
 
 def example_7_differentiable_sdf():
-    """The TPU build's new capability: gradients of the SDF w.r.t. vertices."""
+    """The new capability: gradients of the SDF w.r.t. vertices."""
     banner("Example 7: Differentiable SDF (vertex gradients)")
 
     import jax
     import jax.numpy as jnp
-    from sdfgenfast_tpu.grid import GridSpec
-    from sdfgenfast_tpu.mesh import icosphere
-    from sdfgenfast_tpu.pipeline import SDFConfig, bin_mesh, make_level_set3
+    from sdfgenfast.grid import GridSpec
+    from sdfgenfast.mesh import icosphere
+    from sdfgenfast.pipeline import SDFConfig, bin_mesh, make_level_set3
 
     mesh = icosphere(1, radius=1.0)
     grid = GridSpec((-1.4, -1.4, -1.4), 2.8 / 23, (24, 24, 24))
@@ -159,8 +159,8 @@ def example_8_batch_generation():
     banner("Example 8: Batch generation (shared grid)")
 
     import numpy as np
-    import sdfgenfast_tpu as sdfgen
-    from sdfgenfast_tpu.mesh import icosphere
+    import sdfgenfast as sdfgen
+    from sdfgenfast.mesh import icosphere
 
     rng = np.random.default_rng(0)
     base = icosphere(2, radius=1.0)
@@ -178,7 +178,7 @@ def example_8_batch_generation():
 def example_9_sharded_multi_device():
     """Multi-device (sharded) generation: the voxel grid tiles over a
     (j, k) jax.sharding.Mesh and every shard runs the same kernels as a
-    single-chip run (Pallas band + pyramid far field on TPU). On one
+    single-device run (band kernel + pyramid far field on a GPU). On one
     device this degenerates gracefully; on a CPU test host set
     XLA_FLAGS=--xla_force_host_platform_device_count=8 to see real
     sharding. Batches compose with the mesh via
@@ -186,9 +186,9 @@ def example_9_sharded_multi_device():
     banner("Example 9: Sharded multi-device generation")
 
     import numpy as np
-    from sdfgenfast_tpu import GridSpec, SDFConfig
-    from sdfgenfast_tpu.mesh import icosphere
-    from sdfgenfast_tpu.parallel import (
+    from sdfgenfast import GridSpec, SDFConfig
+    from sdfgenfast.mesh import icosphere
+    from sdfgenfast.parallel import (
         bin_mesh_sharded, make_device_mesh, sharded_sdf,
     )
 

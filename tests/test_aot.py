@@ -1,8 +1,8 @@
-"""Unit tests for the AOT warm-start artifact layer (sdfgenfast_tpu/aot.py).
+"""Unit tests for the AOT warm-start artifact layer (sdfgenfast/aot.py).
 
 The layer is exercised generically with a small jitted function (the
-real consumers — the blob-core programs — engage it only on TPU, where
-re-tracing costs 6-15 s per process; see pipeline.make_level_set3).
+real consumers — the blob-core programs — engage it only on the GPU kernel
+route; see pipeline.make_level_set3).
 """
 
 import os
@@ -13,7 +13,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from sdfgenfast_tpu import aot
+from sdfgenfast import aot
 
 
 @partial(jax.jit, static_argnames=("scale",))
@@ -85,8 +85,34 @@ class TestCallAot:
             jax.config.update("jax_compilation_cache_dir", prev)
 
     def test_kill_switch(self, aot_cache, monkeypatch):
-        monkeypatch.setenv("SDFGENFAST_TPU_NO_AOT", "1")
+        monkeypatch.setenv("SDFGENFAST_NO_AOT", "1")
         x = jnp.ones((2, 8), jnp.float32)
         aot.call_aot(_toy, "toy", {"scale": 2}, x)
         assert not (aot_cache / "aot").exists() \
             or not list((aot_cache / "aot").iterdir())
+
+    def test_failed_export_is_not_retried(self, aot_cache, monkeypatch):
+        # a failed export falls back to the direct call once per process:
+        # later calls must not pay the re-trace again
+        calls = []
+
+        def broken_export(*a, **k):
+            calls.append(1)
+            raise ImportError("no serializer")
+
+        monkeypatch.setattr(jax.export, "export", broken_export)
+        x = jnp.ones((2, 8), jnp.float32)
+        with pytest.warns(UserWarning):
+            out = aot.call_aot(_toy, "toy", {"scale": 7}, x)
+        out = aot.call_aot(_toy, "toy", {"scale": 7}, x)
+        np.testing.assert_array_equal(np.asarray(out[1]), np.full((2, 8), 8.0))
+        assert len(calls) == 1
+
+    def test_disabled_without_serializer(self, aot_cache, monkeypatch):
+        import importlib.util
+
+        real = importlib.util.find_spec
+        monkeypatch.setattr(importlib.util, "find_spec",
+                            lambda n, *a: None if n == "flatbuffers"
+                            else real(n, *a))
+        assert not aot.enabled()

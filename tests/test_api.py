@@ -10,18 +10,19 @@ Grids are kept tiny and shapes shared across tests so jit caches amortize.
 import os
 import tempfile
 
+import jax
 import numpy as np
 import pytest
 
-import sdfgenfast_tpu as sdfgen
-from sdfgenfast_tpu import mesh as mesh_mod
+import sdfgenfast as sdfgen
+from sdfgenfast import mesh as mesh_mod
 
 
 @pytest.fixture
 def simple_cube():
     """1x1x1 cube centered at the origin — the reference's fixture geometry
     (test_sdfgen.py:15-58), rebuilt from our own mesh generator."""
-    from sdfgenfast_tpu.mesh import box_mesh
+    from sdfgenfast.mesh import box_mesh
 
     m = box_mesh((1.0, 1.0, 1.0), (-0.5, -0.5, -0.5))
     return m.verts, m.tris
@@ -95,23 +96,25 @@ class TestBasicFunctionality:
 
 
 class TestBackends:
-    def test_is_tpu_available(self):
-        assert isinstance(sdfgen.is_tpu_available(), bool)
-        # compatibility alias (reference vocabulary)
-        assert sdfgen.is_gpu_available is sdfgen.is_tpu_available
+    def test_is_gpu_available(self):
+        assert isinstance(sdfgen.is_gpu_available(), bool)
+        # the probe looks for CUDA devices only: the CPU never counts
+        assert sdfgen.is_gpu_available() == bool(
+            [d for d in jax.devices() if d.platform == "gpu"])
 
     def test_cpu_backend(self, simple_cube):
         vertices, triangles = simple_cube
         sdf = _gen(vertices, triangles, backend="cpu")
         assert sdf.shape == (20, 20, 20)
 
-    @pytest.mark.skipif(
-        not sdfgen.is_tpu_available(), reason="TPU not available"
-    )
-    def test_tpu_backend(self, simple_cube):
+    @pytest.mark.gpu
+    def test_gpu_backend(self, gpu, simple_cube):
         vertices, triangles = simple_cube
-        sdf = _gen(vertices, triangles, backend="tpu")
+        sdf = _gen(vertices, triangles, backend="gpu")
         assert sdf.shape == (20, 20, 20)
+        np.testing.assert_allclose(
+            sdf, _gen(vertices, triangles, backend="cpu"),
+            atol=5e-6, rtol=1e-5)
 
     def test_auto_backend_matches_cpu(self, simple_cube):
         # the analog of the reference's CPU/GPU consistency check
@@ -402,7 +405,7 @@ class TestEdgeCases:
         assert abs(d_point - expected) < 0.2
 
     def test_mesh_far_from_origin(self):
-        from sdfgenfast_tpu.mesh import box_mesh
+        from sdfgenfast.mesh import box_mesh
 
         offset = 1000.0
         m = box_mesh((1.0, 1.0, 1.0), (offset, offset, offset))
@@ -430,17 +433,27 @@ class TestEdgeCases:
         with pytest.raises(ValueError):
             _gen(vertices, triangles, dx=-0.1)
 
-    def test_tpu_backend_when_unavailable(self, simple_cube):
+    def test_gpu_backend_when_unavailable(self, simple_cube, monkeypatch):
+        # forced 'gpu' without a CUDA device raises, like the reference's
+        # forced-GPU throw (common/sdfgen_unified.cpp:60-63)
+        from sdfgenfast import api
+
+        monkeypatch.setattr(api, "_gpu_devices", lambda: [])
         vertices, triangles = simple_cube
-        if sdfgen.is_tpu_available():
-            pytest.skip("TPU is available here")
         with pytest.raises(RuntimeError):
-            _gen(vertices, triangles, backend="tpu")
+            _gen(vertices, triangles, backend="gpu")
+
+    @pytest.mark.parametrize("name", ["cuda", "rocm"])
+    def test_backend_outside_vocabulary_rejected(self, simple_cube, name):
+        # only the reference's words: "auto" | "cpu" | "gpu"
+        vertices, triangles = simple_cube
+        with pytest.raises(ValueError):
+            _gen(vertices, triangles, backend=name)
 
 
 class TestBatchAPI:
     """generate_sdf_batch: one shared grid, compiled-program reuse across
-    meshes (BASELINE config 5's batch capability — the reference has no
+    meshes (the batch capability — the reference has no
     batch API)."""
 
     def test_batch_matches_individual(self):

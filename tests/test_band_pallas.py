@@ -1,23 +1,19 @@
-"""Pallas band kernel + chamfer kernel vs their XLA/jnp reference paths.
+"""Pallas band kernel vs the XLA tile path, and the plain chamfer.
 
-Interpret mode on the forced-CPU backend (CI) validates the CSR layout, DMA
-window mapping, chunk loop, tie-breaks, and closest-point reconstruction.
-The compiled path is exercised on the real chip by the perf workflow
-(tools/profile_stages.py end-to-end + golden spot checks)."""
-
-from functools import partial
+Interpret mode on the forced-CPU backend validates the CSR layout, the
+per-tile candidate loop, tie-breaks, and closest-point reconstruction. The
+compiled kernel is checked on the GPU by tests/test_gpu.py (`pytest -m gpu`)
+and chip_smoke.py."""
 
 import numpy as np
-import jax
 import jax.numpy as jnp
 import pytest
 
-from sdfgenfast_tpu.mesh import icosphere
-from sdfgenfast_tpu.grid import sizing_mode2a_proportional
-from sdfgenfast_tpu.pipeline import SDFConfig, bin_mesh
-from sdfgenfast_tpu.ops import tiled as tiled_ops
-from sdfgenfast_tpu.ops import band_pallas, vdt as vdt_ops
-from sdfgenfast_tpu.ops.vdt_pallas import pallas_chamfer
+from sdfgenfast.mesh import icosphere
+from sdfgenfast.grid import sizing_mode2a_proportional
+from sdfgenfast.pipeline import SDFConfig, bin_mesh
+from sdfgenfast.ops import tiled as tiled_ops
+from sdfgenfast.ops import band_pallas, vdt as vdt_ops
 
 
 @pytest.fixture(scope="module")
@@ -41,8 +37,7 @@ def test_band_rows_match_xla(sphere_setup):
     phi_r, tid_r, cpx_r, cpy_r, cpz_r = band_pallas.band_rows_pallas(
         tv - origin, jnp.asarray(csr["pair"]), ids,
         jnp.asarray(csr["off"]), jnp.asarray(csr["cnt"]), dxj,
-        kcap=csr["kcap"], tiles_dim=bb.tiles_dim, grid_shape=grid.shape,
-        interpret=True,
+        tiles_dim=bb.tiles_dim, grid_shape=grid.shape, interpret=True,
     )
     phi_x, tid_x = tiled_ops.tile_candidate_rows(
         tv, ids, jnp.asarray(bb.cand), jnp.asarray(bb.cand_valid),
@@ -53,6 +48,9 @@ def test_band_rows_match_xla(sphere_setup):
     rows = np.asarray(bb.active_ids[:A])
     phi_p = np.asarray(phi_r)[rows]
     tid_p = np.asarray(tid_r)[rows]
+    # every active tile's row written (interpret mode leaves NaN otherwise)
+    for r in (phi_r, cpx_r, cpy_r, cpz_r):
+        assert np.isfinite(np.asarray(r)[rows]).all()
     phi_x = np.asarray(phi_x)[:A]
     tid_x = np.asarray(tid_x)[:A]
 
@@ -99,8 +97,7 @@ def test_band_tid_ids_valid(sphere_setup):
         tv - origin, jnp.asarray(csr["pair"]), jnp.asarray(bb.active_ids),
         jnp.asarray(csr["off"]), jnp.asarray(csr["cnt"]),
         jnp.float32(grid.dx),
-        kcap=csr["kcap"], tiles_dim=bb.tiles_dim, grid_shape=grid.shape,
-        interpret=True,
+        tiles_dim=bb.tiles_dim, grid_shape=grid.shape, interpret=True,
     )
     A = bb.num_active
     tids = np.asarray(tid_r)[np.asarray(bb.active_ids[:A])]
@@ -117,18 +114,35 @@ def test_csr_builder_prefix_dense():
         cand[i, :c] = rng.integers(0, 999, c)
         valid[i, :c] = True
     pair, off, cnt = band_pallas.band_csr_from_binning(cand, valid, 999)
-    assert (cnt % band_pallas.CHUNK == 0).all()
+    np.testing.assert_array_equal(cnt, counts)
     for i in range(A):
         seg = pair[off[i]:off[i] + cnt[i]]
         np.testing.assert_array_equal(seg[:counts[i]], cand[i, :counts[i]])
         assert (seg[counts[i]:] == 999).all()
 
 
+def _chamfer_np(phi, dx, passes):
+    """Brute-force 26-offset min-plus passes in NumPy float32."""
+    phi = np.asarray(phi, np.float32)
+    for _ in range(passes):
+        ext = np.pad(phi, 1, constant_values=np.float32(3e38))
+        out = phi.copy()
+        for o in vdt_ops._OFFSETS26:
+            step = np.float32(np.sqrt(float((o ** 2).sum()))) * np.float32(dx)
+            nb = ext[tuple(slice(1 + int(a), 1 + int(a) + n)
+                           for a, n in zip(o, phi.shape))]
+            out = np.minimum(out, nb + step)
+        phi = out
+    return phi
+
+
 @pytest.mark.parametrize("shape", [(64, 64, 128), (48, 41, 75)])
-def test_chamfer_kernel_matches_jnp(shape):
+def test_chamfer_matches_bruteforce(shape):
+    # the chamfer has no kernel (a fused static-shift XLA form measured
+    # faster on the GPU); the plain form must equal brute-force passes
     rng = np.random.default_rng(1)
-    phi = jnp.asarray(np.abs(rng.normal(size=shape)).astype(np.float32))
+    phi = np.abs(rng.normal(size=shape)).astype(np.float32)
     dx = np.float32(0.02)
-    a = vdt_ops.chamfer_relax(phi, dx, passes=2)
-    b = pallas_chamfer(phi, dx, passes=2, interpret=True)
-    np.testing.assert_allclose(np.asarray(a), np.asarray(b), rtol=2e-7)
+    a = vdt_ops.chamfer_relax(jnp.asarray(phi), dx, passes=2)
+    np.testing.assert_allclose(np.asarray(a), _chamfer_np(phi, dx, 2),
+                               rtol=2e-7)

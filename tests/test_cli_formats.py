@@ -23,7 +23,7 @@ def run_cli(args, cwd, timeout=420):
     env["JAX_PLATFORMS"] = "cpu"
     env["PYTHONPATH"] = REPO
     return subprocess.run(
-        [sys.executable, "-m", "sdfgenfast_tpu.cli"] + list(args),
+        [sys.executable, "-m", "sdfgenfast.cli"] + list(args),
         cwd=cwd, env=env, capture_output=True, text=True, timeout=timeout,
     )
 

@@ -3,14 +3,14 @@
 import numpy as np
 import pytest
 
-from sdfgenfast_tpu import GridSpec, Mesh, box_mesh
-from sdfgenfast_tpu.grid import (
+from sdfgenfast import GridSpec, Mesh, box_mesh
+from sdfgenfast.grid import (
     sizing_mode1_legacy,
     sizing_mode2a_proportional,
     sizing_mode2b_manual,
     sizing_python_api,
 )
-from sdfgenfast_tpu.io import mesh_io, sdf_io
+from sdfgenfast.io import mesh_io, sdf_io
 
 
 class TestGridSpec:
@@ -175,10 +175,10 @@ class TestMesh:
 class TestNativeBinning:
     def test_native_matches_numpy(self):
         import numpy as np
-        from sdfgenfast_tpu.grid import GridSpec
-        from sdfgenfast_tpu.io import native
-        from sdfgenfast_tpu.mesh import icosphere
-        from sdfgenfast_tpu.ops import band as band_ops
+        from sdfgenfast.grid import GridSpec
+        from sdfgenfast.io import native
+        from sdfgenfast.mesh import icosphere
+        from sdfgenfast.ops import band as band_ops
 
         if not native.available() or native.bin_triangles_native(
             np.zeros((3, 3), np.float32), np.zeros((1, 3), np.uint32),
@@ -208,10 +208,10 @@ class TestNativeBinning:
         # (csrc/sdfbin.cpp pick_threads); candidate ORDER must still be the
         # serial ascending-triangle order bit-for-bit
         import numpy as np
-        from sdfgenfast_tpu.grid import GridSpec
-        from sdfgenfast_tpu.io import native
-        from sdfgenfast_tpu.mesh import icosphere
-        from sdfgenfast_tpu.ops import band as band_ops
+        from sdfgenfast.grid import GridSpec
+        from sdfgenfast.io import native
+        from sdfgenfast.mesh import icosphere
+        from sdfgenfast.ops import band as band_ops
 
         if not native.available():
             import pytest
@@ -239,10 +239,10 @@ class TestNativeBinning:
 class TestTorusMesh:
     def test_flagship_size_and_watertight(self):
         import numpy as np
-        from sdfgenfast_tpu.mesh import torus_mesh
+        from sdfgenfast.mesh import torus_mesh
 
         m = torus_mesh()
-        assert m.num_tris == 100352  # BASELINE's "100k-triangle mesh"
+        assert m.num_tris == 100352  # the 100k-triangle benchmark mesh
         m.validate_indices()
         # watertight: every directed edge appears exactly once (its reverse
         # closes the surface)

@@ -4,8 +4,8 @@ double-float arithmetic accuracy."""
 import numpy as np
 import jax.numpy as jnp
 
-from sdfgenfast_tpu.ops import df as dfm
-from sdfgenfast_tpu.ops.geometry import (
+from sdfgenfast.ops import df as dfm
+from sdfgenfast.ops.geometry import (
     closest_point_weights,
     point_segment_distance_sq,
     point_triangle_distance_sq,

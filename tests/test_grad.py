@@ -1,16 +1,16 @@
 """Differentiability: vertex gradients of the SDF grid vs finite differences.
 
-This is the new capability the TPU build adds over the reference (BASELINE
-config 3): d phi(grid) / d vertices via the barycentric closest-point VJP with
+This is the new capability this framework adds over the reference:
+d phi(grid) / d vertices via the barycentric closest-point VJP with
 the discrete closest-triangle/parity fields frozen (envelope theorem)."""
 
 import numpy as np
 import jax
 import jax.numpy as jnp
 
-from sdfgenfast_tpu import GridSpec, SDFConfig, box_mesh, make_level_set3
-from sdfgenfast_tpu.mesh import icosphere
-from sdfgenfast_tpu.pipeline import bin_mesh
+from sdfgenfast import GridSpec, SDFConfig, box_mesh, make_level_set3
+from sdfgenfast.mesh import icosphere
+from sdfgenfast.pipeline import bin_mesh
 
 
 def _loss_fn(mesh, grid, binned, weights):

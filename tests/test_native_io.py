@@ -6,8 +6,8 @@ import os
 import numpy as np
 import pytest
 
-from sdfgenfast_tpu.io import mesh_io, native, sdf_io
-from sdfgenfast_tpu.mesh import box_mesh, icosphere
+from sdfgenfast.io import mesh_io, native, sdf_io
+from sdfgenfast.mesh import box_mesh, icosphere
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 RES = os.path.join(HERE, "resources")

@@ -20,13 +20,13 @@ import pytest
 
 from conftest import ensure_resource
 
-from sdfgenfast_tpu import GridSpec, SDFConfig, make_level_set3
-from sdfgenfast_tpu.grid import (
+from sdfgenfast import GridSpec, SDFConfig, make_level_set3
+from sdfgenfast.grid import (
     sizing_mode1_legacy,
     sizing_mode2a_proportional,
     sizing_mode2b_manual,
 )
-from sdfgenfast_tpu.io import mesh_io, sdf_io
+from sdfgenfast.io import mesh_io, sdf_io
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 GOLDENS = os.path.join(HERE, "goldens")

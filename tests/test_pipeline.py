@@ -3,10 +3,10 @@
 import numpy as np
 import pytest
 
-from sdfgenfast_tpu import GridSpec, SDFConfig, box_mesh, make_level_set3
-from sdfgenfast_tpu.mesh import icosphere
-from sdfgenfast_tpu.pipeline import bin_mesh
-from sdfgenfast_tpu.grid import sizing_mode2a_proportional
+from sdfgenfast import GridSpec, SDFConfig, box_mesh, make_level_set3
+from sdfgenfast.mesh import icosphere
+from sdfgenfast.pipeline import bin_mesh
+from sdfgenfast.grid import sizing_mode2a_proportional
 from oracle import brute_force_sdf
 
 SURF_EPS = 1e-5  # cells lying exactly on the surface have ambiguous sign
@@ -64,7 +64,7 @@ class TestBoxPipeline:
 
     def test_single_triangle_open_surface(self):
         # non-watertight input: parity semantics still follow the reference
-        from sdfgenfast_tpu.mesh import Mesh
+        from sdfgenfast.mesh import Mesh
 
         verts = np.array([[0.1, 0.1, 0.1], [1.9, 0.2, 0.15], [0.3, 1.8, 0.2]], np.float32)
         tris = np.array([[0, 1, 2]], np.uint32)
@@ -163,7 +163,7 @@ class TestBinningInvariance:
 
 class TestErrors:
     def test_empty_mesh(self):
-        from sdfgenfast_tpu.mesh import Mesh
+        from sdfgenfast.mesh import Mesh
 
         m = Mesh(np.zeros((0, 3), np.float32), np.zeros((0, 3), np.uint32))
         g = GridSpec((0, 0, 0), 1.0, (4, 4, 4))
@@ -206,13 +206,13 @@ class TestCrossingsTransport:
 
 class TestVdtAxisPermutation:
     """Non-cubic grids run the pyramid VDT with axes permuted (largest dim
-    on TPU lanes); results must stay oracle-accurate in the original
+    last); results must stay oracle-accurate in the original
     orientation."""
 
     def test_flat_grid_against_oracle(self):
         m = icosphere(2, radius=1.0, center=(0.04, -0.02, 0.03))
         # k much smaller than i/j: the permutation moves j/i onto lanes
         g = GridSpec((-1.4, -1.4, -0.35), 0.09, (32, 32, 8))
-        from sdfgenfast_tpu.pipeline import _vdt_axis_perm
+        from sdfgenfast.pipeline import _vdt_axis_perm
         assert _vdt_axis_perm(g.shape) != (0, 1, 2)
         _check_against_oracle(m, g)

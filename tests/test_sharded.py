@@ -7,10 +7,10 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from sdfgenfast_tpu import GridSpec, SDFConfig, make_level_set3
-from sdfgenfast_tpu.mesh import box_mesh, icosphere
-from sdfgenfast_tpu.parallel import bin_mesh_sharded, make_device_mesh, sharded_sdf
-from sdfgenfast_tpu.pipeline import bin_mesh
+from sdfgenfast import GridSpec, SDFConfig, make_level_set3
+from sdfgenfast.mesh import box_mesh, icosphere
+from sdfgenfast.parallel import bin_mesh_sharded, make_device_mesh, sharded_sdf
+from sdfgenfast.pipeline import bin_mesh
 
 
 def _assert_equivalent(a, b):
@@ -79,7 +79,7 @@ class TestShardedParity:
 
 class TestShardedPyramid:
     """The DEFAULT sharded schedule (no vdt_max_hop): the same pyramid far
-    field the single-chip bench runs, distributed via local downsamples +
+    field a single-device run uses, distributed via local downsamples +
     an all_gather'ed coarsest ladder + halo-extended repair rounds. Must
     reproduce the single-device pyramid result (identical arithmetic; the
     tolerance covers XLA fusion/FMA reassociation across the two program
@@ -307,7 +307,7 @@ class TestShardedGradients:
 @pytest.mark.slow
 class TestSharded512Class:
     def test_512_class_halo_ladder_matches_single_device(self):
-        # BASELINE config 4's sharded-correctness analog on the virtual CPU
+        # The 512-class sharded-correctness analog on the virtual CPU
         # mesh: 512-wide sharded axes (blocks 256x128 on the (2,4) mesh), so
         # the capped jump-flood ladder runs deep halo exchanges; the i-axis
         # is kept thin to make the CPU run affordable.
@@ -325,12 +325,11 @@ class TestSharded512Class:
 @pytest.mark.slow
 class TestSharded1024Class:
     def test_1024_class_halo_ladder_matches_single_device(self):
-        # BASELINE config 5's grid scale on the virtual CPU mesh: 1024-wide
+        # A 1024-class grid on the virtual CPU mesh: 1024-wide
         # sharded axes (blocks 512x256 on the (2,4) mesh) exercise the
         # capped ladder's deepest halo cascades; thin i keeps the CPU run
-        # affordable (8 x 1024 x 1024 = 8.4M cells). At real-chip scale this
-        # sharding is MANDATORY: the (5, n, n, n) f32 VDT state at 1024^3 is
-        # ~20 GB, beyond a single v5e's 16 GB HBM (see README memory table).
+        # affordable (8 x 1024 x 1024 = 8.4M cells). The (5, n, n, n) f32
+        # VDT state at 1024^3 is ~21.5 GB.
         dmesh = _mesh_or_skip()
         m = icosphere(3, radius=1.0, center=(0.02, 0.015, -0.01))
         g = GridSpec((-1.25, -1.25, -1.25), 2.5 / 1024, (8, 1024, 1024))

@@ -4,10 +4,10 @@ class TestCrossingsTransport:
     def test_crossings_reconstruct_parity_both_branches(self):
         import numpy as np
         import jax.numpy as jnp
-        from sdfgenfast_tpu import GridSpec
-        from sdfgenfast_tpu.io import native
-        from sdfgenfast_tpu.mesh import icosphere
-        from sdfgenfast_tpu.ops import sign_host
+        from sdfgenfast import GridSpec
+        from sdfgenfast.io import native
+        from sdfgenfast.mesh import icosphere
+        from sdfgenfast.ops import sign_host
 
         m = icosphere(2, radius=1.0, center=(0.04, -0.03, 0.02))
         g = GridSpec((-1.3, -1.25, -1.28), 0.09, (30, 29, 31))

@@ -1,13 +1,13 @@
-"""tile_candidate_field (MXU-form evaluator) vs the v1 band evaluator and
+"""tile_candidate_field (batched affine-form evaluator) vs the v1 band evaluator and
 the float64 oracle: same binning in, near-identical distances out."""
 
 import jax.numpy as jnp
 import numpy as np
 
-from sdfgenfast_tpu import GridSpec
-from sdfgenfast_tpu.mesh import box_mesh, icosphere
-from sdfgenfast_tpu.ops import band as band_ops
-from sdfgenfast_tpu.ops import tiled as tiled_ops
+from sdfgenfast import GridSpec
+from sdfgenfast.mesh import box_mesh, icosphere
+from sdfgenfast.ops import band as band_ops
+from sdfgenfast.ops import tiled as tiled_ops
 from oracle import brute_force_sdf
 
 

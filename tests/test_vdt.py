@@ -4,7 +4,7 @@ upper-bound invariant, seed freezing, stride capping, chamfer properties."""
 import numpy as np
 import jax.numpy as jnp
 
-from sdfgenfast_tpu.ops.vdt import (
+from sdfgenfast.ops.vdt import (
     FAR,
     chamfer_relax,
     stride_ladder,
@@ -132,13 +132,13 @@ class TestChamferRelax:
 
 class TestJitConsistency:
     def test_jit_matches_eager(self):
-        # Regression: a python-unrolled 26-shift Gauss-Seidel chain
-        # MISCOMPILED under jit on the TPU backend (jit and eager disagreed
-        # by 8dx on identical inputs); the fori_loop + pad + dynamic-slice
+        # Regression: a python-unrolled 26-shift Gauss-Seidel chain once
+        # MISCOMPILED under jit (jit and eager disagreed by 8dx on identical
+        # inputs); the fori_loop + pad + dynamic-slice
         # form compiles correctly on all backends. Pin jit == eager.
         import jax
         from functools import partial
-        from sdfgenfast_tpu.ops.vdt import vdt_far_field, stride_ladder
+        from sdfgenfast.ops.vdt import vdt_far_field, stride_ladder
 
         args, _ = _point_site_case((16, 16, 16), 8, seed=9)
         cpx, cpy, cpz, tid, phi_seed, dx = args

@@ -1,25 +1,21 @@
-"""Pallas VDT round kernel vs the jnp reference round.
+"""Pallas VDT round kernel vs the jnp reference round, and both vs brute force.
 
 CI runs on the forced-CPU backend, so the kernel is exercised in Pallas
 interpret mode here — that validates the kernel's index/mask/merge logic
-(window assembly, clamped strips, lane rotates) against the jnp round. The
-payload channels (cp x/y/z + tid bits) must match BIT-FOR-BIT — any indexing
-or masking bug garbles them outright; the d2 channel is allowed 2 ulp
-because interpret mode contracts the three squared differences with a
-different FMA pattern than XLA:CPU uses for the jnp round. On the real chip
-the Mosaic-compiled kernel is bit-equal on ALL channels — asserted at full
-256-class size by tools/verify_pallas_rounds.py."""
+(masked donor loads at the domain boundary, ragged j/k blocks) against the
+jnp round. The payload channels (cp x/y/z + tid bits) must match
+BIT-FOR-BIT — any indexing or masking bug garbles them outright; the d2
+channel is allowed 2 ulp because the kernel may contract the three squared
+differences with a different FMA pattern than XLA uses for the jnp round.
+The compiled kernel is checked at 512^3 on the GPU by chip_smoke.py."""
 
 import numpy as np
 import jax
 import jax.numpy as jnp
 import pytest
 
-from sdfgenfast_tpu.ops import vdt as V
-from sdfgenfast_tpu.ops.vdt_pallas import (
-    pallas_round_phase,
-    supports_pallas_round,
-)
+from sdfgenfast.ops import vdt as V
+from sdfgenfast.ops.vdt_pallas import pallas_round_phase
 
 
 def _assert_round_equal(a, b):
@@ -68,7 +64,6 @@ def test_round_bit_equal_interpret(stride):
     rng = np.random.default_rng(stride)
     dx = np.float32(0.02)
     st = _random_state(rng, 48, 48, 128, dx)
-    assert supports_pallas_round(st.shape, stride)
     a = _jnp_phase(st, dx, (stride,))
     b = pallas_round_phase(st, dx, (stride,), interpret=True)
     _assert_round_equal(a, b)
@@ -100,10 +95,43 @@ def test_phase_scale_positions():
 
 
 def test_unsupported_shapes_fall_back():
+    """Tiny levels (smaller than one block on every axis) run through the
+    kernel too — no shape-based fallback is needed on the Triton route."""
     rng = np.random.default_rng(3)
     dx = np.float32(0.02)
     st = _random_state(rng, 16, 16, 16, dx, n_seed=200)
-    assert not supports_pallas_round(st.shape, 1)
     a = _jnp_phase(st, dx, (1,))
-    b = pallas_round_phase(st, dx, (1,), interpret=True)  # jnp fallback
+    b = pallas_round_phase(st, dx, (1,), interpret=True)
     _assert_round_equal(a, b)
+
+
+def _round_bruteforce(state, dx, stride):
+    """One Jacobi round in NumPy: every cell keeps the first strictly closer
+    of its 26 stride-s donors (the round-start state), in offset order."""
+    st = np.asarray(state)
+    _, ni, nj, nk = st.shape
+    px, py, pz = (np.asarray(a) for a in V._level_pos_axes((ni, nj, nk), dx, 1))
+    best = st.copy()
+    for oi, oj, ok in V._OFFSETS26.tolist():
+        src = np.full_like(st, V.FAR)
+        dst = [slice(max(0, -o * stride), n - max(0, o * stride))
+               for o, n in zip((oi, oj, ok), (ni, nj, nk))]
+        srcs = [slice(max(0, o * stride), n - max(0, -o * stride))
+                for o, n in zip((oi, oj, ok), (ni, nj, nk))]
+        src[(slice(None), *dst)] = st[(slice(None), *srcs)]
+        cd2 = ((px - src[0]) * (px - src[0]) + (py - src[1]) * (py - src[1])
+               + (pz - src[2]) * (pz - src[2]))
+        better = cd2 < best[4]
+        best[:4] = np.where(better[None], src[:4], best[:4])
+        best[4] = np.where(better, cd2, best[4])
+    return best
+
+
+@pytest.mark.parametrize("shape", [(24, 20, 36), (48, 41, 75)])
+@pytest.mark.parametrize("stride", [1, 2, 4, 8])
+def test_plain_round_matches_bruteforce(stride, shape):
+    rng = np.random.default_rng(stride)
+    dx = np.float32(0.02)
+    st = _random_state(rng, *shape, dx, n_seed=600)
+    a = _jnp_phase(st, dx, (stride,))
+    _assert_round_equal(a, _round_bruteforce(st, dx, stride))

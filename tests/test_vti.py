@@ -5,7 +5,7 @@ test_vtk_output.cpp:1-168): output file exists, is well-formed XML with the
 expected ImageData structure, and the payload round-trips. The reference
 validates through the VTK library; our writer is dependency-free, so the
 payload check decodes the base64 appended data directly. Also exercises the
-CLI's SDFGEN_TPU_VTI hook (the runtime analog of the reference's HAVE_VTK
+CLI's SDFGEN_VTI hook (the runtime analog of the reference's HAVE_VTK
 build flag, app/main.cpp:281-317)."""
 
 import base64
@@ -17,7 +17,7 @@ import xml.etree.ElementTree as ET
 import numpy as np
 import pytest
 
-from sdfgenfast_tpu.io.vti import write_vti
+from sdfgenfast.io.vti import write_vti
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 RESOURCES = os.path.join(HERE, "resources")
@@ -73,7 +73,7 @@ class TestVtiWriter:
 
 
 class TestCliVti:
-    """SDFGEN_TPU_VTI=1 switches the CLI's output to .vti, mirroring the
+    """SDFGEN_VTI=1 switches the CLI's output to .vti, mirroring the
     reference's HAVE_VTK build (test_vtk_output.cpp runs the CLI and checks
     the file and the summary block)."""
 
@@ -84,7 +84,7 @@ class TestCliVti:
         if extra_env:
             env.update(extra_env)
         return subprocess.run(
-            [sys.executable, "-m", "sdfgenfast_tpu.cli", *args],
+            [sys.executable, "-m", "sdfgenfast.cli", *args],
             capture_output=True, text=True, cwd=cwd, env=env, timeout=570,
         )
 
@@ -93,7 +93,7 @@ class TestCliVti:
 
         shutil.copy(os.path.join(RESOURCES, "box345.stl"), tmp_path)
         res = self._run(["box345.stl", "24", "1"], str(tmp_path),
-                        {"SDFGEN_TPU_VTI": "1"})
+                        {"SDFGEN_VTI": "1"})
         assert res.returncode == 0, res.stderr
         out = tmp_path / "box345_sdf_24x31x39.vti"
         assert out.exists(), res.stdout
@@ -112,7 +112,7 @@ class TestCliVti:
 
         shutil.copy(os.path.join(RESOURCES, "box345.stl"), tmp_path)
         res = self._run(["box345.stl", "16", "1"], str(tmp_path),
-                        {"SDFGEN_TPU_VTI": "0"})
+                        {"SDFGEN_VTI": "0"})
         assert res.returncode == 0, res.stderr
         assert (tmp_path / "box345_sdf_16x21x25.sdf").exists(), res.stdout
         assert not (tmp_path / "box345_sdf_16x21x25.vti").exists()

@@ -1,18 +1,16 @@
 #!/usr/bin/env python
 """Sharded-pipeline communication accounting: analytic halo bytes/rounds vs
 vdt_max_hop, plus a measured max_hop sweep on the virtual CPU mesh — and the
-contention-vs-comms verdict the round-3 scaling table lacked.
+contention-vs-comms verdict.
 
 The virtual 8-device CPU mesh shares 2 physical host cores, so its wall
 clocks measure CORE CONTENTION (8 shard programs time-slicing 2 cores), not
 interconnect cost. The analytic model gives the exact bytes each compiled
-ppermute moves — deterministic from the config — which is what real ICI
-would carry. Measured (2026-08): wall tracks the capped ladder's ROUND
+ppermute moves — deterministic from the config — which is what NVLink
+would carry between real cards. Measured (2026-08): wall tracks the capped ladder's ROUND
 COUNT (70 rounds @ hop 8 -> 17 @ hop 64: 131 s -> 45 s) while total bytes
 rise only 25% — the virtual-mesh "efficiency cliff" is contention plus
-round count, not interconnect cost.
-
-Publishes BASELINE.json["published"]["sharded_comms_model"].
+round count, not interconnect cost. Prints the table as JSON.
 
 Usage: python tools/comms_model.py [--measure]
 """
@@ -39,11 +37,11 @@ def main():
     import jax
 
     jax.config.update("jax_platforms", "cpu")
-    from sdfgenfast_tpu.parallel.sharded import (
+    from sdfgenfast.parallel.sharded import (
         halo_comms_model, make_device_mesh, bin_mesh_sharded, sharded_sdf)
-    from sdfgenfast_tpu.pipeline import SDFConfig
-    from sdfgenfast_tpu.grid import GridSpec
-    from sdfgenfast_tpu.mesh import icosphere
+    from sdfgenfast.pipeline import SDFConfig
+    from sdfgenfast.grid import GridSpec
+    from sdfgenfast.mesh import icosphere
 
     grid_shape = (8, 512, 512)
     dims = (2, 4)
@@ -79,29 +77,12 @@ def main():
             print(f"max_hop={h}: measured wall {min(ts):.3f} s "
                   "(virtual CPU mesh: contention-bound)")
 
-    base_path = os.path.join(REPO, "BASELINE.json")
-    with open(base_path) as f:
-        base = json.load(f)
-    base.setdefault("published", {})["sharded_comms_model"] = {
+    print(json.dumps({
         "grid": list(grid_shape),
         "device_mesh": list(dims),
         "analytic_per_hop": analytic,
         "measured_wall_s_virtual_cpu_mesh": measured,
-        "verdict": (
-            "Measured wall on the virtual mesh tracks the capped-ladder "
-            "ROUND COUNT (70 rounds @ hop 8 -> 17 @ hop 64: wall 131 s -> "
-            "45 s), i.e. full-grid compute passes, while total halo bytes "
-            "rise only 25% (65.9 -> 82.5 MB/device) — and 8 shard "
-            "programs time-slice 2 host cores, so absolute walls are "
-            "CONTENTION-bound, not comms-bound. Policy for real slices: "
-            "vdt_max_hop = shard block — fewest rounds (compute) AND "
-            "fewest ppermute latencies, for a modest byte increase; slabs "
-            "are ICI-bandwidth-sized (1-10 MB) at every hop."),
-    }
-    with open(base_path, "w") as f:
-        json.dump(base, f, indent=2)
-    print("published sharded_comms_model to BASELINE.json")
-
+    }, indent=2))
 
 if __name__ == "__main__":
     main()

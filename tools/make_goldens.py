@@ -18,13 +18,13 @@ import sys
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
-# host-only tool: never touch the (single-grant) TPU backend
+# host-only tool: never claim an accelerator
 import jax  # noqa: E402
 
 jax.config.update("jax_platforms", "cpu")
 
-from sdfgenfast_tpu.io import mesh_io  # noqa: E402
-from sdfgenfast_tpu.mesh import box_mesh, icosphere  # noqa: E402
+from sdfgenfast.io import mesh_io  # noqa: E402
+from sdfgenfast.mesh import box_mesh, icosphere  # noqa: E402
 
 RESOURCES = os.path.join(REPO, "tests", "resources")
 GOLDENS = os.path.join(REPO, "tests", "goldens")
@@ -132,7 +132,7 @@ def make_sparse_golden_256(ref_binary="/tmp/refbuild/bin/SDFGen"):
     Usage: python tools/make_goldens.py --sparse-256
     """
     import numpy as np
-    from sdfgenfast_tpu.io import sdf_io
+    from sdfgenfast.io import sdf_io
 
     workdir = os.path.join("/tmp", "golden_work256")
     shutil.rmtree(workdir, ignore_errors=True)
@@ -181,7 +181,7 @@ def sparse_512(ref_binary, from_sdf=None):
     Usage: python tools/make_goldens.py --sparse-512 [--from path.sdf]
     """
     import numpy as np
-    from sdfgenfast_tpu.io import sdf_io
+    from sdfgenfast.io import sdf_io
 
     if from_sdf is None:
         workdir = os.path.join("/tmp", "golden_work512")

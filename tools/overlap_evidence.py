@@ -1,16 +1,14 @@
 #!/usr/bin/env python
-"""Evidence for the vertex-gradient all-reduce overlap claim (BASELINE
-config 5): compile the sharded train step and inspect the OPTIMIZED HLO for
+"""Evidence for the vertex-gradient all-reduce overlap claim: compile the sharded train step and inspect the OPTIMIZED HLO for
 the cross-shard gradient all-reduce — is it emitted as an async
 all-reduce-start / all-reduce-done pair, and how much real work does the
 scheduler place inside the in-flight window?
 
-This is compile-artifact evidence, not a wall-clock trace: the environment
-has one physical TPU chip, so a multi-chip ICI profile cannot be captured
-here. The async-pair + in-window op count is exactly what XLA's latency-
-hiding scheduler produces when it overlaps a collective with compute, and
-the same lowering runs unchanged on a real slice. (Set PROFILE_TRACE=<dir>
-to also dump a jax.profiler trace of the step on the available devices.)
+This is compile-artifact evidence, not a wall-clock trace. The async-pair +
+in-window op count is what XLA's latency-hiding scheduler produces when it
+overlaps a collective with compute; on four GPUs the same program runs
+unchanged. (Set PROFILE_TRACE=<dir> to also dump a jax.profiler trace of
+the step on the available devices.)
 
 Usage: XLA_FLAGS=--xla_force_host_platform_device_count=8 \
        python tools/overlap_evidence.py
@@ -37,8 +35,8 @@ jax.config.update("jax_platforms", "cpu")
 import jax.numpy as jnp
 import numpy as np
 
-from sdfgenfast_tpu.models import SDFGenerator
-from sdfgenfast_tpu.parallel import make_device_mesh
+from sdfgenfast.models import SDFGenerator
+from sdfgenfast.parallel import make_device_mesh
 import __graft_entry__ as ge
 
 
@@ -70,7 +68,7 @@ def main():
         print(f"ops inside the first start..done window: {n_ops}")
     else:
         print("backend emitted synchronous all-reduce (CPU backends do not "
-              "use async collective pairs; on TPU the latency-hiding "
+              "use async collective pairs; on GPUs the latency-hiding "
               "scheduler emits start/done around independent compute)")
 
     trace_dir = os.environ.get("PROFILE_TRACE", "")

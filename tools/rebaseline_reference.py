@@ -6,13 +6,11 @@ BASELINE.md's RTX-4090 anchor (28.6M voxels/s) was measured on the
 100k-triangle flagship rows need their own reference numbers. This runs the
 actual reference CPU build (/tmp/refbuild/bin/SDFGen, or $SDFGEN_REF) on the
 flagship meshes at the 256/512-class mode-2a grids, with 1 thread and all
-host cores, and publishes the wall-clock times + derived voxels/s into
-BASELINE.json["published"]["reference_rebaseline"].
+host cores, and prints the wall-clock times + derived voxels/s as JSON.
 
 The reference's own GPU/1-thread-CPU speedup at 256-class is 37.6x
 (README.md:279-284); an RTX-4090 ESTIMATE for each config is derived as
-cpu_1thread_time / 37.6 and marked as estimated. bench.py consumes these to
-print honest vs_ref columns.
+cpu_1thread_time / 37.6 and marked as estimated.
 
 Host caveat recorded in the output: this machine exposes N cores (the
 reference README numbers used a 24-core i9-13900K).
@@ -36,7 +34,7 @@ GPU_SPEEDUP_256 = 37.6  # reference README.md:279-284, 256-class
 
 
 def write_stl(path, mesh):
-    from sdfgenfast_tpu.io.mesh_io import save_stl
+    from sdfgenfast.io.mesh_io import save_stl
 
     save_stl(path, mesh)
 
@@ -58,7 +56,7 @@ def run_ref(mesh_path, nx, threads, timeout=7200):
 
 
 def main():
-    from sdfgenfast_tpu.mesh import icosphere, torus_mesh
+    from sdfgenfast.mesh import icosphere, torus_mesh
 
     ncores = os.cpu_count() or 1
     tmp = tempfile.mkdtemp(prefix="rebaseline_")
@@ -101,14 +99,7 @@ def main():
         }
         results[name] = row
 
-    base_path = os.path.join(REPO, "BASELINE.json")
-    with open(base_path) as f:
-        base = json.load(f)
-    prev = base.setdefault("published", {}).get(
-        "reference_rebaseline", {}).get("rows", {})
-    prev.update(results)
-    results = prev
-    base["published"]["reference_rebaseline"] = {
+    print(json.dumps({
         "binary": REF_BIN,
         "host_cores": ncores,
         "host_caveat": (
@@ -117,11 +108,7 @@ def main():
             "machine-independent-ish anchor, rtx4090_est scales it by the "
             "reference's own measured GPU speedup"),
         "rows": results,
-    }
-    with open(base_path, "w") as f:
-        json.dump(base, f, indent=2)
-    print(f"published {len(results)} rows to BASELINE.json")
-
+    }, indent=2))
 
 if __name__ == "__main__":
     main()
